@@ -1,16 +1,17 @@
-"""mindthegap_tpu — a TPU-native insertion-variant caller and genome gap-filler.
+"""mindthegap_tpu — an insertion-variant caller and genome gap-filler on JAX/XLA.
 
 A from-scratch reimplementation of the capabilities of GATB/MindTheGap
-(reference: /root/reference, AGPL, INRIA Genscale) designed TPU-first:
+(AGPL, INRIA Genscale) whose hot loops run on an accelerator:
 
 - k-mer extraction, counting, and de Bruijn graph membership are vectorized
-  device ops (JAX/XLA, Pallas kernels for the hot probes);
+  device ops (plain JAX/XLA programs, compiled for the GPU by XLA);
 - the `find` reference scan is a device pass producing per-position
   "plane" tensors (membership / in-out degree / repeat bits), replayed by an
   exact host automaton on the sparse gap events;
 - the `fill` local assembly is a batched frontier expansion with host path
   enumeration on the tiny per-breakpoint contig graphs;
-- multi-chip scaling uses jax.sharding Mesh + collectives (no MPI/NCCL).
+- multi-device scaling uses jax.sharding Mesh + collectives (XLA hands
+  them to NCCL on GPUs; no MPI).
 
 The package keeps MindTheGap's CLI surface, file formats and defaults
 (see reference src/Finder.cpp:97-171, src/Filler.cpp:76-113) so it is a

@@ -8,6 +8,7 @@ names, defaults, hidden options, and the help/version screens
 from __future__ import annotations
 
 import sys
+import traceback
 
 from . import MTG_COMPAT_VERSION, KSIZE_STRING
 
@@ -108,7 +109,7 @@ def parse_options(argv: list[str], spec: dict) -> dict:
 
 def display_version(out):
     out.write("* * * * * * * * * * * * * * * * * * * * * *\n")
-    out.write(f"* MindTheGap version {MTG_COMPAT_VERSION} (tpu-native)   *\n")
+    out.write(f"* MindTheGap version {MTG_COMPAT_VERSION} (JAX/XLA)     *\n")
     out.write("* Engine: mindthegap_tpu (jax/XLA)        *\n")
     out.write(f"* Supported kmer sizes <{KSIZE_STRING}   *\n")
     out.write("* * * * * * * * * * * * * * * * * * * * * *\n")
@@ -168,6 +169,9 @@ def main(argv: list[str] | None = None) -> int:
         module_help(out, cmd, spec)
         return 1
 
+    from .utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     try:
         if cmd == "find":
             from .find.runner import run_find
@@ -178,6 +182,11 @@ def main(argv: list[str] | None = None) -> int:
 
             run_fill(opts, out)
     except Exception as e:  # mirror main.cpp's EXCEPTION channel
+        from .fill.runner import FillerError
+        from .find.runner import FinderError
+
+        if not isinstance(e, (FinderError, FillerError)):
+            traceback.print_exc()  # an internal fault, not a usage error
         msg = str(e)
         if msg:
             out.write(f"\nEXCEPTION: {msg}\n")

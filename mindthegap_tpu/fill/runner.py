@@ -311,13 +311,9 @@ class Filler:
         # host scale, SURVEY.md §2.3 row 2), allgather the per-shard results,
         # and replay them in input order — every process reconstructs the
         # identical artifact stream; host 0 is the writer of record
-        nproc = 1
-        try:
-            import jax
+        import jax
 
-            nproc = jax.process_count()
-        except Exception:
-            pass
+        nproc = jax.process_count()
         if nproc > 1:
             from ..parallel.distributed import allgather_object, shard_bounds
 
@@ -353,17 +349,14 @@ class Filler:
                 # job lanes ride the whole device mesh when one is available
                 # (shard_map over the largest power-of-two device count) —
                 # the multi-chip Dispatcher fan-out (src/Filler.cpp:824,844)
+                import jax
+
                 mesh = None
-                try:
-                    import jax
+                n = len(jax.devices())
+                if n > 1 and jax.process_count() == 1:
+                    from ..parallel.mesh import make_mesh
 
-                    n = len(jax.devices())
-                    if n > 1 and jax.process_count() == 1:
-                        from ..parallel.mesh import make_mesh
-
-                        mesh = make_mesh(1 << (n.bit_length() - 1))
-                except Exception:
-                    mesh = None
+                    mesh = make_mesh(1 << (n.bit_length() - 1))
                 walker = BatchWalker(self.view.qm, self.k, mesh=mesh)
             else:  # 32 < k <= 256: multi-word lanes over the span map
                 walker = BatchWalker(self.view.ensure_span_map(), self.k)
@@ -775,7 +768,7 @@ class Filler:
         info = Properties()
         info.add(0, "MindTheGap fill")
         info.add(1, "version", MTG_COMPAT_VERSION)
-        info.add(1, "gatb-core-library", "mindthegap_tpu (tpu-native)")
+        info.add(1, "gatb-core-library", "mindthegap_tpu (JAX/XLA)")
         info.add(1, "supported_kmer_sizes", KSIZE_STRING)
         info.add(0, "Parameters")
         info.add(1, "Input data")

@@ -4,24 +4,17 @@ construct_linear_seqs / traverse_right over the fused cuckoo quotient map
 (ops/extmap.py QMap), bit-exact with the python engine and ~1-2 orders of
 magnitude faster (the fill hot loop #3, reference src/Filler.cpp:854-884).
 
-The library is compiled on demand (g++) and cached next to the source, same
-pattern as utils/stdcompat.py. k <= 32 only (u64 node lanes) — callers fall
+The library is compiled on demand (g++, utils/native_build.py). k <= 32 only (u64 node lanes) — callers fall
 back to the python engine for larger spans or bucket-layout maps.
 """
 
 from __future__ import annotations
 
 import ctypes
-import os
-import subprocess
 
 import numpy as np
 
-_NATIVE_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))), "native"
-)
-_LIB_PATH = os.path.join(_NATIVE_DIR, "libmtgtraversal.so")
-_SRC_PATH = os.path.join(_NATIVE_DIR, "traversal.cpp")
+from ..utils import native_build
 
 _lib = None
 _lib_failed = False
@@ -38,12 +31,7 @@ def _load():
     if _lib is not None or _lib_failed:
         return _lib
     try:
-        if not os.path.exists(_LIB_PATH) or os.path.getmtime(_LIB_PATH) < os.path.getmtime(_SRC_PATH):
-            subprocess.run(
-                ["g++", "-O3", "-shared", "-fPIC", "-o", _LIB_PATH, _SRC_PATH],
-                check=True, capture_output=True,
-            )
-        lib = ctypes.CDLL(_LIB_PATH)
+        lib = ctypes.CDLL(native_build.build("traversal.cpp"))
     except Exception:
         _lib_failed = True
         return None

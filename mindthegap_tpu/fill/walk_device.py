@@ -226,10 +226,10 @@ class BatchWalker:
 
     def __init__(self, qmap, k: int, min_lanes: int = 8, steps: int = 256,
                  max_steps: int = 2048, mesh=None):
-        # steps default: each dispatch is a fixed relay round trip (~30 ms
-        # remote) while per-step compute is ~2 gathers x lanes (~micro-
-        # seconds) — overshooting steps is nearly free, undershooting
-        # multiplies round trips, so start big and escalate fast
+        # steps default: each dispatch pays a fixed host round trip while
+        # per-step compute is ~2 gathers x lanes — overshooting steps is
+        # cheap, undershooting multiplies round trips, so start big and
+        # escalate fast (the defaults are not measured on the H100)
         self.k = k
         if isinstance(qmap, X.QMapSpan):
             self.layout = "span"

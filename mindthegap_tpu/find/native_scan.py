@@ -9,16 +9,10 @@ the C side dispatches on the word count."""
 from __future__ import annotations
 
 import ctypes
-import os
-import subprocess
 
 import numpy as np
 
-_NATIVE_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))), "native"
-)
-_LIB_PATH = os.path.join(_NATIVE_DIR, "libmtgautomaton.so")
-_SRC_PATH = os.path.join(_NATIVE_DIR, "automaton.cpp")
+from ..utils import native_build
 
 _lib = None
 _lib_failed = False
@@ -29,12 +23,7 @@ def _load():
     if _lib is not None or _lib_failed:
         return _lib
     try:
-        if not os.path.exists(_LIB_PATH) or os.path.getmtime(_LIB_PATH) < os.path.getmtime(_SRC_PATH):
-            subprocess.run(
-                ["g++", "-O3", "-march=native", "-shared", "-fPIC", "-o", _LIB_PATH, _SRC_PATH],
-                check=True, capture_output=True,
-            )
-        lib = ctypes.CDLL(_LIB_PATH)
+        lib = ctypes.CDLL(native_build.build("automaton.cpp"))
         lib.scanner_create_span.restype = ctypes.c_void_p
         lib.scanner_create_span.argtypes = [
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,

@@ -220,8 +220,12 @@ class Graph:
           / attrs: info = JSON metadata (thresholds, nb_branching, ...)
 
         Graph.load() reads both this and the native npz format, so an
-        exported file is a drop-in `-graph` argument."""
-        import h5py
+        exported file is a drop-in `-graph` argument. Needs the h5py
+        package, which nothing else on the find/fill path does."""
+        try:
+            import h5py
+        except ImportError as e:
+            raise RuntimeError("HDF5 export needs the h5py package (pip install h5py)") from e
 
         if self.solid.span is None:
             kmers = self.solid.keys

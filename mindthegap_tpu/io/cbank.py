@@ -7,16 +7,10 @@ native library cannot be built."""
 from __future__ import annotations
 
 import ctypes
-import os
-import subprocess
 
 import numpy as np
 
-_NATIVE_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))), "native"
-)
-_LIB_PATH = os.path.join(_NATIVE_DIR, "libmtgfastx.so")
-_SRC_PATH = os.path.join(_NATIVE_DIR, "fastx.cpp")
+from ..utils import native_build
 
 _lib = None
 _lib_failed = False
@@ -27,13 +21,7 @@ def _load():
     if _lib is not None or _lib_failed:
         return _lib
     try:
-        if not os.path.exists(_LIB_PATH) or os.path.getmtime(_LIB_PATH) < os.path.getmtime(_SRC_PATH):
-            subprocess.run(
-                ["g++", "-O2", "-shared", "-fPIC", "-o", _LIB_PATH, _SRC_PATH, "-lz"],
-                check=True,
-                capture_output=True,
-            )
-        lib = ctypes.CDLL(_LIB_PATH)
+        lib = ctypes.CDLL(native_build.build("fastx.cpp", "-O2", ("-lz",)))
         lib.fastx_parse.restype = ctypes.c_void_p
         lib.fastx_parse.argtypes = [ctypes.c_char_p]
         lib.fastx_n.restype = ctypes.c_int64

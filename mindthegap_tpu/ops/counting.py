@@ -12,7 +12,7 @@ with solidity "sum" over multiple banks). Behavior replicated here:
 - "-abundance-min auto" derives the threshold from the abundance histogram
   with a hard floor of 3 (STR_KMER_ABUNDANCE_MIN_THRESHOLD, Finder.cpp:255).
 
-The counting core is a sort + segmented-reduce, the TPU-friendly shape
+The counting core is a sort + segmented-reduce, an accelerator-friendly shape
 (device path uses jnp.sort over uint64 keys; host oracle uses np.unique).
 
 Calibration note (gatb-core submodule is absent upstream): on the reference's

@@ -101,21 +101,11 @@ def _load_native():
     if _KM_LIB is not None or _KM_FAILED:
         return _KM_LIB
     import ctypes
-    import os
-    import subprocess
 
-    ndir = os.path.join(
-        os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))), "native"
-    )
-    lib_path = os.path.join(ndir, "libmtgkmers.so")
-    src_path = os.path.join(ndir, "kmers.cpp")
+    from ..utils import native_build
+
     try:
-        if not os.path.exists(lib_path) or os.path.getmtime(lib_path) < os.path.getmtime(src_path):
-            subprocess.run(
-                ["g++", "-O3", "-shared", "-fPIC", "-o", lib_path, src_path],
-                check=True, capture_output=True,
-            )
-        lib = ctypes.CDLL(lib_path)
+        lib = ctypes.CDLL(native_build.build("kmers.cpp"))
         lib.extract_fwd.restype = None
         lib.extract_fwd.argtypes = [
             ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,

@@ -6,13 +6,11 @@ prefers diagonal, then up (i-1,j), then left (i,j-1); terminal gaps handled
 the reference way. Used by solution dedup (>=90% identity) and the nwalign
 tool.
 
-``nw_identity`` routes through three equivalent engines:
+``nw_identity`` routes through two equivalent engines:
 - native C++ rolling-row pair-DP (native/nw.cpp) — default, O(m) memory;
-- the full python DP + traceback below (oracle, also returns mis/gap counts);
-- a Pallas anti-diagonal wavefront kernel (nw_device.py) for long pairs on
-  TPU, where the sequential row dependency defeats XLA fusion.
+- the full python DP + traceback below (oracle, also returns mis/gap counts).
 
-All three reproduce the traceback's tie-breaking exactly (the traceback
+Both reproduce the traceback's tie-breaking exactly (the traceback
 makes purely local decisions on score values, so a forward selection DP
 carrying the match count yields the identical identity).
 """
@@ -91,21 +89,11 @@ def _load_native():
     if _NW_LIB is not None or _NW_FAILED:
         return _NW_LIB
     import ctypes
-    import os
-    import subprocess
 
-    ndir = os.path.join(
-        os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))), "native"
-    )
-    lib_path = os.path.join(ndir, "libmtgnw.so")
-    src_path = os.path.join(ndir, "nw.cpp")
+    from ..utils import native_build
+
     try:
-        if not os.path.exists(lib_path) or os.path.getmtime(lib_path) < os.path.getmtime(src_path):
-            subprocess.run(
-                ["g++", "-O3", "-shared", "-fPIC", "-o", lib_path, src_path],
-                check=True, capture_output=True,
-            )
-        lib = ctypes.CDLL(lib_path)
+        lib = ctypes.CDLL(native_build.build("nw.cpp"))
         lib.nw_identity.restype = ctypes.c_double
         lib.nw_identity.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_char_p, ctypes.c_int64]
         _NW_LIB = lib

@@ -1,7 +1,7 @@
 """Multi-chip scale-out: device mesh, sharded scan, distributed counting.
 
 The reference is single-node shared-memory (GATB Dispatcher thread pool,
-SURVEY.md §2.3); the TPU-native equivalents here are:
+SURVEY.md §2.3); the device equivalents here are:
 
 - **data-parallel graph build**: read batches sharded over the mesh; each
   device extracts+sorts canonical k-mers and computes a partial abundance

@@ -4,10 +4,10 @@ real pipeline (`-count-engine sharded`).
 The reference's SortingCountAlgorithm partitions k-mers by minimizer onto
 disk and counts partitions on threads (call site
 src/FindBreakpoints.hpp:965-979, config src/Finder.cpp:226-263). The
-TPU-native restatement (SURVEY.md §2.3 row 1, §5.8): read batches are cut
+device restatement (SURVEY.md §2.3 row 1, §5.8): read batches are cut
 into per-device chunks on a 1-D mesh; each device extracts + canonicalizes
 its k-mers; every k-mer is then ROUTED to its owner device by a bijective
-hash prefix via `all_to_all` over ICI, so each device owns a disjoint shard
+hash prefix via `all_to_all` (NCCL over NVLink on GPUs), so each device owns a disjoint shard
 of the key space (the exact-set analog of sharding the Bloom filter). Each
 device sorts what it received; the host merges per-owner sorted runs flush
 by flush.

@@ -1,6 +1,6 @@
 """ctypes bridge to the native runtime helpers (native/stdcompat.cpp).
 
-The library is compiled on demand (g++) and cached next to the source. The
+The library is compiled on demand (g++, utils/native_build.py). The
 main entry point reproduces libstdc++ std::unordered_map iteration order,
 which the reference relies on for its multi-target output ordering
 (src/Filler.cpp:924-936)."""
@@ -8,12 +8,8 @@ which the reference relies on for its multi-target output ordering
 from __future__ import annotations
 
 import ctypes
-import os
-import subprocess
 
-_NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))), "native")
-_LIB_PATH = os.path.join(_NATIVE_DIR, "libmtgnative.so")
-_SRC_PATH = os.path.join(_NATIVE_DIR, "stdcompat.cpp")
+from . import native_build
 
 _lib = None
 
@@ -22,13 +18,7 @@ def _load():
     global _lib
     if _lib is not None:
         return _lib
-    if not os.path.exists(_LIB_PATH) or os.path.getmtime(_LIB_PATH) < os.path.getmtime(_SRC_PATH):
-        subprocess.run(
-            ["g++", "-O2", "-shared", "-fPIC", "-o", _LIB_PATH, _SRC_PATH],
-            check=True,
-            capture_output=True,
-        )
-    _lib = ctypes.CDLL(_LIB_PATH)
+    _lib = ctypes.CDLL(native_build.build("stdcompat.cpp", "-O2"))
     _lib.stdmap_iteration_order.restype = ctypes.c_int
     _lib.stdmap_iteration_order.argtypes = [
         ctypes.POINTER(ctypes.c_char_p),

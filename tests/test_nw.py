@@ -1,12 +1,9 @@
-"""Pallas NW wavefront kernel vs the python DP oracle (interpret mode on the
-CPU backend; the compiled path is exercised on real TPU hardware by
-scripts/bench_nw.py and the nwalign --device engine)."""
+"""Native Needleman-Wunsch identity (native/nw.cpp) vs the python DP oracle."""
 
 import numpy as np
 import pytest
 
 from mindthegap_tpu.ops import nw
-from mindthegap_tpu.ops.nw_device import nw_identity_device
 
 
 @pytest.fixture(scope="module")
@@ -38,20 +35,9 @@ def pairs():
     return out
 
 
-def test_wavefront_matches_oracle(pairs):
-    py = [nw.needleman_wunsch(a, b)[0] for a, b in pairs]
-    dev = nw_identity_device(pairs, interpret=True)
-    np.testing.assert_allclose(dev, py, rtol=0, atol=1e-12)
-
-
 def test_native_matches_oracle(pairs):
     if nw._load_native() is None:
         pytest.skip("native NW unavailable")
     py = [nw.needleman_wunsch(a, b)[0] for a, b in pairs]
     nat = [nw.nw_identity(a, b) for a, b in pairs]
     np.testing.assert_allclose(nat, py, rtol=0, atol=1e-12)
-
-
-def test_uneven_lengths_and_empty():
-    assert nw_identity_device([("A" * 3, "A" * 170)], interpret=True)[0] == pytest.approx(3 / 170)
-    assert nw_identity_device([], interpret=True).size == 0
