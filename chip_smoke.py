@@ -21,7 +21,8 @@ run, since a second JAX process could not open the card):
      identical .insertions.fasta and .insertions.vcf;
   4. k=63 on a 2^20-base deployment: find -scan-engine device and fill
      -fill-engine device against the host engines;
-  5. wall time of each phase and each run's -profile breakdown.
+  5. wall time of each phase, each run's -profile breakdown and the time
+     JAX spent compiling in it (its own compile timers).
 
 Equality is exact: no device step on this path computes in floating point.
 Any exception or mismatch exits non-zero. The last line of standard output
@@ -176,10 +177,36 @@ def make_deployment(work: str, genome_len: int, seed: int) -> dict:
 # ---------------------------------------------------------------------------
 # running the CLI and comparing artifacts
 # ---------------------------------------------------------------------------
+# JAX's own compile timers, summed per CLI run: backend compile (a
+# persistent-cache fetch included) and tracing + lowering to MLIR
+_COMPILE_EVENTS = {
+    "/jax/core/compile/backend_compile_duration": "compile",
+    "/jax/core/compile/jaxpr_trace_duration": "trace+lower",
+    "/jax/core/compile/jaxpr_to_mlir_module_duration": "trace+lower",
+}
+_jit_secs = {"compile": 0.0, "trace+lower": 0.0, "programs": 0}
+_listening = []
+
+
+def _on_duration(event, secs, **_kw):
+    kind = _COMPILE_EVENTS.get(event)
+    if kind is not None:
+        _jit_secs[kind] += secs
+        _jit_secs["programs"] += kind == "compile"
+
+
 def run_cli(args: list[str]):
-    """cli.main in this process; returns (seconds, report). Raises on rc != 0."""
+    """cli.main in this process; returns (seconds, report), the report
+    ending in a line of the JAX compile time the run spent. Raises on
+    rc != 0."""
+    import jax
+
     from mindthegap_tpu import cli
 
+    if not _listening:
+        jax.monitoring.register_event_duration_secs_listener(_on_duration)
+        _listening.append(True)
+    before = dict(_jit_secs)
     buf = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
@@ -187,7 +214,10 @@ def run_cli(args: list[str]):
     dt = time.perf_counter() - t0
     if rc != 0:
         raise SmokeFailure(f"MindTheGap {' '.join(args)} exited {rc}:\n{buf.getvalue()}")
-    return dt, buf.getvalue()
+    d = {k: _jit_secs[k] - before[k] for k in _jit_secs}
+    jit = (f"jit: {d['programs']} programs, compile {d['compile']:.2f} s,"
+           f" trace+lower {d['trace+lower']:.2f} s")
+    return dt, buf.getvalue() + jit + "\n"
 
 
 def profile_lines(report: str) -> list[str]:
@@ -203,6 +233,11 @@ def profile_lines(report: str) -> list[str]:
             break
         out.append(re.sub(r"\s+:", ":", s.strip()))
     return out
+
+
+def breakdown(report: str) -> str:
+    """The -profile phases and the JAX compile line of a run_cli report."""
+    return "; ".join(profile_lines(report) + [s for s in report.splitlines() if s.startswith("jit: ")])
 
 
 def _vcf_body(path):
@@ -251,10 +286,10 @@ def planted_found(dep: dict, breakpoints: str, tol: int = 10) -> dict:
     return found
 
 
-def find_vs_oracle(dep, work, k, device_args, *, reuse_graph=False,
-                   expect_phase="scan+replay (fused)", log=print):
+def find_vs_oracle(dep, work, k, device_args, *, reuse_graph=False, log=print):
     """find with `device_args` against the host oracle (-count-engine host
-    -scan-engine host) on the same inputs. With reuse_graph the device run
+    -scan-engine host) on the same inputs; the device run must take the
+    fused device scan feed (`scan+replay (fused)`). With reuse_graph the device run
     loads the oracle's graph (-graph) instead of counting the reads again.
     Returns (graph of the device run, its breakpoints, {run: seconds})."""
     common = ["-ref", dep["ref"], "-kmer-size", str(k), "-verbose", "0", "-profile"]
@@ -264,13 +299,13 @@ def find_vs_oracle(dep, work, k, device_args, *, reuse_graph=False,
     t, rep = run_cli(["find", "-in", dep["reads"], *common, "-out", oracle,
                       "-count-engine", "host", "-scan-engine", "host"])
     times[f"find k={k} host oracle"] = t
-    log(f"find k={k} host oracle: {t:.2f} s; " + "; ".join(profile_lines(rep)))
+    log(f"find k={k} host oracle: {t:.2f} s; " + breakdown(rep))
     src = ["-graph", oracle + ".h5"] if reuse_graph else ["-in", dep["reads"]]
     t, rep = run_cli(["find", *src, *common, "-out", dev, *device_args])
     times[f"find k={k} {' '.join(device_args)}"] = t
-    log(f"find k={k} {' '.join(device_args)}: {t:.2f} s; " + "; ".join(profile_lines(rep)))
-    if expect_phase and not any(s.startswith(expect_phase) for s in profile_lines(rep)):
-        raise SmokeFailure(f"find {' '.join(device_args)} did not run '{expect_phase}':\n{rep}")
+    log(f"find k={k} {' '.join(device_args)}: {t:.2f} s; " + breakdown(rep))
+    if not any(s.startswith("scan+replay (fused)") for s in profile_lines(rep)):
+        raise SmokeFailure(f"find {' '.join(device_args)} did not run the fused scan feed:\n{rep}")
     _same_bytes(dev + ".breakpoints", oracle + ".breakpoints", f"find k={k} .breakpoints")
     _same_vcf(dev + ".othervariants.vcf", oracle + ".othervariants.vcf", f"find k={k} VCF")
     n_solid = _same_graph(dev + ".h5", oracle + ".h5") if not reuse_graph else None
@@ -293,7 +328,7 @@ def fill_engines_agree(graph, bkpt, work, k, engines, log=print):
         t, rep = run_cli(["fill", "-graph", graph, "-bkpt", bkpt, "-out", out,
                           "-fill-engine", eng, "-verbose", "0", "-profile"])
         times[f"fill k={k} -fill-engine {eng}"] = t
-        log(f"fill k={k} -fill-engine {eng}: {t:.2f} s; " + "; ".join(profile_lines(rep)))
+        log(f"fill k={k} -fill-engine {eng}: {t:.2f} s; " + breakdown(rep))
         outs.append(out)
     for eng, out in zip(engines[1:], outs[1:]):
         _same_bytes(out + ".insertions.fasta", outs[0] + ".insertions.fasta",
@@ -385,7 +420,7 @@ def four_cards(work, seed, log2_len=22, log=print) -> dict:
     t, rep = run_cli(["find", "-graph", oracle + ".h5", "-ref", dep["ref"], "-out", mem,
                       "-scan-memory", "1", "-verbose", "0", "-profile"])
     times["find k=31 -scan-memory 1 (sharded-mem)"] = t
-    log(f"find k=31 -scan-memory 1: {t:.2f} s; " + "; ".join(profile_lines(rep)))
+    log(f"find k=31 -scan-memory 1: {t:.2f} s; " + breakdown(rep))
     if not any(s.startswith("scan planes") for s in profile_lines(rep)):
         raise SmokeFailure("over-budget find did not take the sharded-mem plane path")
     _same_bytes(mem + ".breakpoints", oracle + ".breakpoints", "sharded-mem .breakpoints")

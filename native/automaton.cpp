@@ -14,7 +14,8 @@
 // The output is the exact text of the .breakpoints and .othervariants.vcf
 // record streams (headers excluded) plus the counters; python writes files.
 //
-// Build: g++ -O2 -shared -fPIC -o libmtgautomaton.so automaton.cpp
+// Built on first use by mindthegap_tpu/utils/native_build.py (g++ -O3 -shared -fPIC),
+// into native/libautomaton-<hash of source, flags and compiler>.so.
 
 #include <cstdint>
 #include <cstdio>

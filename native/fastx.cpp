@@ -10,7 +10,8 @@
 // The device pipeline consumes the code buffer directly (no per-record
 // python string handling on the hot path).
 //
-// Build: g++ -O2 -shared -fPIC -o libmtgfastx.so fastx.cpp -lz
+// Built on first use by mindthegap_tpu/utils/native_build.py (g++ -O2 -shared -fPIC ... -lz),
+// into native/libfastx-<hash of source, flags and compiler>.so.
 
 #include <zlib.h>
 

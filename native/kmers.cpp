@@ -5,7 +5,8 @@
 // = code^2, canonical = min(fwd, revcomp), k-mers containing INVALID (255)
 // bases are invalid (reference Kmer model iterator isValid()).
 //
-// Build: g++ -O3 -shared -fPIC -o libmtgkmers.so kmers.cpp
+// Built on first use by mindthegap_tpu/utils/native_build.py (g++ -O3 -shared -fPIC),
+// into native/libkmers-<hash of source, flags and compiler>.so.
 
 #include <cstdint>
 

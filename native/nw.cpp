@@ -9,7 +9,8 @@
 // decisions on score values, so the preference order is reproduced exactly
 // by a forward selection — O(m) memory, O(nm) time, bit-identical identity.
 //
-// Build: g++ -O3 -shared -fPIC -o libmtgnw.so nw.cpp
+// Built on first use by mindthegap_tpu/utils/native_build.py (g++ -O3 -shared -fPIC),
+// into native/libnw-<hash of source, flags and compiler>.so.
 
 #include <cstdint>
 #include <vector>

@@ -7,7 +7,8 @@
 // dictionaries; the file output order of multi-target jobs depends on it.
 // Using the real container guarantees byte-faithful ordering.
 //
-// Build: g++ -O2 -shared -fPIC -o libmtgnative.so stdcompat.cpp
+// Built on first use by mindthegap_tpu/utils/native_build.py (g++ -O2 -shared -fPIC),
+// into native/libstdcompat-<hash of source, flags and compiler>.so.
 
 #include <string>
 #include <unordered_map>

@@ -3,7 +3,8 @@
 // converges slowly near the load threshold on tens of millions of keys; the
 // sequential walk is O(n) with small constants (~10M inserts/s).
 //
-// Build: g++ -O3 -shared -fPIC -o libmtgtables.so tables.cpp
+// Built on first use by mindthegap_tpu/utils/native_build.py (g++ -O3 -shared -fPIC),
+// into native/libtables-<hash of source, flags and compiler>.so.
 
 #include <cstdint>
 #include <cstring>

@@ -24,7 +24,8 @@
 //   mtg_traverse_right[_span]        — one right extension
 //   mtg_construct_linear_seqs[_span] — one full gap-fill job's contig list
 //
-// Build: g++ -O3 -shared -fPIC -o libmtgtraversal.so traversal.cpp
+// Built on first use by mindthegap_tpu/utils/native_build.py (g++ -O3 -shared -fPIC),
+// into native/libtraversal-<hash of source, flags and compiler>.so.
 
 #include <cstdint>
 #include <cstring>

@@ -4,15 +4,20 @@ the card carry the `gpu` marker and skip (from the `gpu` fixture) here."""
 
 import os
 
-# JAX_PLATFORMS=cuda (as the README's card command sets) keeps the GPU for
-# the `gpu`-marked tests; everything else runs on the CPU backend
-os.environ.setdefault("JAX_PLATFORMS", "cpu")
 flags = os.environ.get("XLA_FLAGS", "")
 if "xla_force_host_platform_device_count" not in flags:
     os.environ["XLA_FLAGS"] = (flags + " --xla_force_host_platform_device_count=8").strip()
 import pytest  # noqa: E402
 
 REFERENCE = "/root/reference"
+
+
+def pytest_configure(config):
+    """The CPU backend, whatever JAX_PLATFORMS the shell carries, unless the
+    run selects only the card's tests (`-m gpu`): those keep the backend the
+    environment names. Runs before any test module imports JAX."""
+    if config.getoption("markexpr", "").strip() != "gpu":
+        os.environ["JAX_PLATFORMS"] = "cpu"
 
 
 @pytest.fixture(scope="session")

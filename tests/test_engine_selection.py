@@ -152,3 +152,26 @@ def test_fill_device_engine_raises_on_failure(monkeypatch, tmp_path):
     f.view = types.SimpleNamespace(qm=object())
     with pytest.raises(RuntimeError, match="walker failed"):
         list(f._run_jobs_local(None, lambda *j: iter(()), [("a", "b")]))
+
+
+def test_fill_device_mesh_failure_propagates(monkeypatch):
+    """-fill-engine device on several devices: a failing mesh build is an
+    error, not a silent single-device walker."""
+    from mindthegap_tpu.fill import walk_device
+    from mindthegap_tpu.fill.runner import Filler
+    from mindthegap_tpu.parallel import mesh as M
+
+    assert len(jax.devices()) > 1  # the mesh branch runs
+
+    def boom(*_a, **_k):
+        raise RuntimeError("mesh failed")
+
+    built = []
+    monkeypatch.setattr(M, "make_mesh", boom)
+    monkeypatch.setattr(walk_device, "BatchWalker", lambda *a, **k: built.append(k))
+    f = Filler.__new__(Filler)
+    f.fill_engine, f.k, f.nb_cores = "device", 31, 1
+    f.view = types.SimpleNamespace(qm=object())
+    with pytest.raises(RuntimeError, match="mesh failed"):
+        list(f._run_jobs_local(None, lambda *j: iter(()), [("a", "b")]))
+    assert not built
